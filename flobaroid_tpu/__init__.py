@@ -1,18 +1,18 @@
-"""flobaroid_tpu — TPU-native floating-base robot dynamics identification.
+"""flobaroid_tpu — floating-base robot dynamics identification in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the FloBaRoID toolkit
+A ground-up JAX/XLA rebuild of the FloBaRoID toolkit
 (reference: kjyv/FloBaRoID): identification of inertial + friction
 parameters of fixed- and floating-base rigid-body robots from joint
 torque / base-wrench measurements, including excitation-trajectory
 optimization, differentiable measurement simulation, physically
 consistent (SDP-constrained) estimation and reporting.
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
   * the per-sample iDynTree inverse-dynamics/regressor loop of the
     reference (identification/model.py:333) becomes one pure-JAX
     function vmapped over all trajectory samples,
-  * Y^T W Y / Y^T tau Gram accumulation streams over HBM-resident
-    sample batches (Pallas kernel, `flobaroid_tpu.ops.gram`),
+  * Y^T W Y / Y^T tau Gram accumulation streams over device-resident
+    sample chunks (XLA einsums at HIGHEST precision inside one scan),
   * gradients of everything (D-optimal trajectory design, friction
     models, measurement effects) come from jax.grad instead of the
     reference's finite differences + multiprocessing pools,

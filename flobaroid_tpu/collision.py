@@ -6,7 +6,7 @@ segment-segment distance :283-349, analytic distance gradients
 :427-505) and identification/collision.py (CollisionChecker with
 margins, robot-self and robot-world queries).
 
-TPU-first: the reference keeps C++ FCL for mesh-accurate checks and
+Device-first: the reference keeps C++ FCL for mesh-accurate checks and
 capsules for gradients; here capsules are the primary representation —
 the segment-segment distance is a small closed-form jnp expression, so
 whole trajectories x all collision pairs evaluate as one vmapped call

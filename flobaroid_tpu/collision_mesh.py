@@ -6,7 +6,7 @@ geometry modes `collisionMode: box/convex/full` with per-link
 the FCL distance queries (identification/collision.py:19-267) and the
 dense re-verification of best trials (optimizer.py:1099-1132).
 
-TPU-native split (SURVEY §7 hard-parts): capsules remain the
+Device/host split (SURVEY §7 hard-parts): capsules remain the
 DIFFERENTIABLE on-device optimizer mode; this module provides the
 EXACT convex-hull distance pass that densely verifies the winning
 candidate before it is declared feasible — the reference's own

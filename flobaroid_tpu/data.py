@@ -8,7 +8,7 @@ differentiation (data.py:369-529), IMU-to-base-state processing
 and Venture-2009 condition-number block selection (data.py:205-344).
 
 All of this is cheap offline host-side signal processing (scipy); the
-TPU work starts after preprocessing with the batched regressor. The
+device work starts after preprocessing with the batched regressor. The
 npz measurement contract is byte-compatible (latin1 py2 legacy files
 included).
 """

@@ -319,7 +319,7 @@ def local_refine_batch(obj, config, x0, rng=None, should_stop=None):
     (obj.al_refine_batch — device-sharded over the candidate mesh axis
     when shardCandidates > 1). The reference runs IPOPT restarts as
     sequential host processes (reference excitation/optimizer.py:
-    1138-1250); on TPU the restart axis is just one more batch axis.
+    1138-1250); here the restart axis is just one more batch axis.
     Per-restart multipliers/penalties evolve independently on host.
     Returns (best_x, best_f, best_feas) over all restarts."""
     K = max(int(config.get("localOptRestarts", 1)), 1)
@@ -339,8 +339,9 @@ def local_refine_batch(obj, config, x0, rng=None, should_stop=None):
     # uniform amplitude backoff can overshoot into the min-velocity /
     # min-torque-utilization floor — the feasible set is a band, and
     # gradient descent from one knife-edge start reaches it only by
-    # luck (measured: the identical reduced-budget kuka run converged
-    # on CPU and stalled on TPU from 1e-4-level arithmetic differences).
+    # luck (the identical reduced-budget kuka run converged on one
+    # backend and stalled on another from 1e-4-level arithmetic
+    # differences).
     # Restart k scales the Fourier coefficients by 0.85^(k//2), odd k
     # adds a small box jitter; restart 0 is the unmodified start.
     for k in range(1, K):

@@ -9,7 +9,7 @@ semi-implicit Euler with a soft +-25 deg swing clamp, and the
 identification base link's pose/velocity series is derived by forward
 kinematics.
 
-TPU-first: instead of re-rooting the model (iDynTree setFloatingBase),
+Device-first: instead of re-rooting the model (iDynTree setFloatingBase),
 the moment balance is formed directly in world-origin Plücker
 coordinates from the root-based engine:
 

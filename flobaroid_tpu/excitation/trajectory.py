@@ -7,7 +7,7 @@ guarantees URDF position limits with analytic chain-rule derivatives
 (BoundedOscillationGenerator :462-558), array playback, static
 postures and minimum-jerk quintic transitions (:11-44).
 
-TPU-first core: `fourier_traj` evaluates ALL joints and samples as one
+Core: `fourier_traj` evaluates ALL joints and samples as one
 differentiable jnp expression over a flat parameter vector — the same
 function is vmapped over candidate populations by the global search
 and differentiated by the local refinement. The class wrappers keep

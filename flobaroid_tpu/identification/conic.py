@@ -20,7 +20,7 @@ with affine g (linear inequalities) and affine matrix maps M_k
     ANALYTIC gradient/Hessian
         d/dx_i  -logdet M_k = -tr(M_k^{-1} F_{k,i})
         d2/dx_i dx_j        =  tr(M_k^{-1} F_{k,i} M_k^{-1} F_{k,j})
-    assembled as two einsums (one MXU contraction each). Round 1 used
+    assembled as two einsums (one matrix contraction each). Round 1 used
     jax.hessian over a Python loop of per-link closures — the analytic
     form cut the warm 30-DOF solve from 4.1 s to well under a second
     and compile time ~10x,
@@ -32,9 +32,9 @@ with affine g (linear inequalities) and affine matrix maps M_k
   * the whole solve is pinned to host CPU f64 (`jax.enable_x64` scope)
     regardless of the process's platform/precision defaults — the
     parameter space is <= ~500-dimensional and interior points need
-    ~1e-9 Newton decrements, which f32 (TPU-native) cannot represent;
-    evaluated on-device and rejected: the f64-emulated TPU path ran
-    ~6x slower than host f64 at these tiny matrix sizes.
+    ~1e-9 Newton decrements, which f32 cannot represent. Whether a
+    device-side f64 solve would beat the host at these tiny matrix
+    sizes is not measured on the H100.
 
 Infeasible starts are handled by a proximal phase-I program
 (minimize s + eps*||x - x0||^2 s.t. g <= s, M + s I >= eps I) with an

@@ -8,7 +8,7 @@ observability / geometric log-det Bregman divergence on whitened
 pseudo-inertia), the feasible-std solve, the closest-to-CAD two-step
 refinement and direct-YStd variant.
 
-Differences from the reference (deliberate, TPU-native):
+Differences from the reference (deliberate):
   * the cvxpy Schur-complement epigraph SDP becomes a plain quadratic
     (+ optional log-det divergence) objective minimized by the JAX
     log-barrier Newton solver in conic.py — no external conic solver,

@@ -1,13 +1,14 @@
 """Multi-chip sample-axis sharding.
 
 The reference's only parallelism is host multiprocessing (Optuna worker
-processes, a gradient pool; SURVEY §2.9). The TPU-native equivalent is
-SPMD over a jax.sharding.Mesh: trajectory samples are the big axis of
-this problem family, so every sample-parallel reduction (Gram
-accumulation, D-optimality objective terms) shards the sample axis
-over the mesh's 'samples' axis and reduces with psum over ICI. The
-parameter space (<= ~500 columns) is replicated — collectives stay
-O(P^2), tiny next to the sharded regressor work.
+processes, a gradient pool; SURVEY §2.9). Here it is SPMD over a
+jax.sharding.Mesh: trajectory samples are the big axis of this problem
+family, so every sample-parallel reduction (Gram accumulation,
+D-optimality objective terms) shards the sample axis over the mesh's
+'samples' axis and reduces with a psum across devices. The parameter
+space (<= ~500 columns) is replicated — collectives stay O(P^2), tiny
+next to the sharded regressor work. The mesh is flat: every device
+reaches every other at the same rate.
 """
 
 from __future__ import annotations
@@ -19,8 +20,17 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "samples") -> Mesh:
+    """A 1-D mesh over the first n_devices devices (all when None).
+    Asking for more devices than are visible is an error: a sharding
+    option (shardSamples / shardCandidates) never runs unsharded."""
     devs = jax.devices()
     if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(
+                f"mesh axis '{axis}' needs {n_devices} devices but only "
+                f"{len(devs)} are visible; lower shardSamples / "
+                f"shardCandidates to at most {len(devs)}"
+            )
         devs = devs[:n_devices]
     return Mesh(np.asarray(devs), (axis,))
 
@@ -47,7 +57,7 @@ def pad_to_multiple(a: np.ndarray, m: int):
 def sharded_gram_fn(engine, mesh: Mesh, floating: bool = False, axis: str = "samples"):
     """Build a jitted function computing (Y^T Y, Y^T tau) with the sample
     axis sharded over `mesh`. Inputs: Q, DQ, DDQ (N,n) [+ base args],
-    tau (N, rows). XLA inserts the psum over ICI."""
+    tau (N, rows). The partial Grams are summed with a psum."""
 
     def local(Q, DQ, DDQ, TAU, BR=None, BV=None, BA=None):
         if floating:

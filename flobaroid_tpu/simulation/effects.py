@@ -8,7 +8,7 @@ torque quantization, structural deflection, backlash, encoder
 quantization, timing jitter, sensor noise), plus the per-joint
 JointProperties derivation from the URDF.
 
-TPU-first: every effect is a vectorized jnp transform over the whole
+Device-first: every effect is a vectorized jnp transform over the whole
 (N, n) trajectory — no per-sample or per-joint Python loops. The only
 truly sequential effect (backlash) is a lax.scan (associative-scan
 form of the clamp recursion is not exact). All smooth effects are

@@ -12,8 +12,6 @@ from __future__ import annotations
 
 from typing import Any
 
-import yaml
-
 # Defaults for every documented key. Values mirror the reference's
 # implicit/explicit defaults (configs/*.yaml and scattered .get calls).
 DEFAULTS: dict[str, Any] = {
@@ -30,11 +28,6 @@ DEFAULTS: dict[str, Any] = {
     # over the candidate mesh axis when shardCandidates > 1); 1 keeps
     # the classic single-start refinement
     "localOptRestarts": 1,
-    # HBM guards: candidate-batch chunk for the vmapped objective /
-    # AL tape (TPU tile padding inflates the tiny trailing regressor
-    # dims 17-57x, so full-population vmaps OOM at scale)
-    "evalBatchChunk": 8,
-    "alBatchChunk": 2,
     "minTolConstr": 0.01,
     # display/interactive toggles accepted for reference-config compat;
     # headless no-ops here (reports are written as files instead)
@@ -179,7 +172,7 @@ DEFAULTS: dict[str, Any] = {
     "useRegressorRegularization": 1,
     "regularizationFactor": 1000.0,
     "deleteFixedBase": 1,
-    # ---- tpu-native execution options (new) ----
+    # ---- device execution options (new) ----
     "computeDtype": "float32",  # on-device regressor/Gram dtype
     "gramChunk": 4096,  # samples per on-device Gram accumulation chunk
     "materializeRegressor": 1,  # keep the stacked YStd (else stream Gram only)
@@ -221,6 +214,8 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> dict[
     """Load a reference-format YAML config, fill defaults, apply overrides."""
     cfg = dict(DEFAULTS)
     if path is not None:
+        import yaml  # only config files need PyYAML
+
         with open(path) as f:
             loaded = yaml.safe_load(f) or {}
         if not isinstance(loaded, dict):

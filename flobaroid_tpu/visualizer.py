@@ -6,7 +6,7 @@ box collision model), world obstacles, trajectory playback with
 optional floating-base pose, collision-violation highlighting and
 torque-utilization display. The OpenGL/FPS-camera stack is replaced by
 matplotlib 3D (headless-friendly: renders to PNG frames, an animated
-HTML, or an interactive window when a display exists — there is no TPU
+HTML, or an interactive window when a display exists — there is no accelerator
 content in visualization, so the simplest portable backend wins)."""
 
 from __future__ import annotations

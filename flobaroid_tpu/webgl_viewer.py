@@ -2,7 +2,7 @@
 
 Interactive counterpart of the reference's pyglet/OpenGL visualizer
 (reference visualizer.py:910-2153: FPS camera, mesh render modes,
-collision highlighting, torque arcs) re-designed for a headless TPU
+collision highlighting, torque arcs) re-designed for a headless
 workflow: instead of a GL window on the host, the viewer exports ONE
 self-contained HTML file (no external JS, works offline) with
 

@@ -1,6 +1,6 @@
 // meshdist — triangle-mesh minimum-distance / intersection queries.
 //
-// TPU-native counterpart of the reference's python-fcl (C++ FCL) BVH
+// Counterpart of the reference's python-fcl (C++ FCL) BVH
 // narrowphase (reference identification/collision.py:19-267 and the
 // optimizer geometry modes box/convex/full with per-link fullMeshLinks,
 // reference excitation/optimizer.py:571-634): an AABB-tree over the raw

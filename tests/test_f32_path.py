@@ -1,4 +1,4 @@
-"""The production TPU numerics path (computeDtype=float32, x64 OFF)
+"""The production device numerics path (computeDtype=float32, x64 OFF)
 must be exercised by CI, not only by bench.py once per round
 (VERDICT r1 weak #4). Runs in a subprocess because conftest forces
 x64 on for the rest of the suite."""

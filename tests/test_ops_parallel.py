@@ -1,4 +1,4 @@
-"""Pallas Gram kernel (interpret mode) and multi-device sample sharding."""
+"""Multi-device sample and candidate sharding."""
 
 import jax
 import jax.numpy as jnp
@@ -7,29 +7,9 @@ import pytest
 
 from flobaroid_tpu.dynamics.engine import DynamicsEngine
 from flobaroid_tpu.models.urdf import load_urdf
-from flobaroid_tpu.ops.gram import gram, gram_augmented, gram_xla
 from flobaroid_tpu.parallel.mesh import make_mesh, shard_batch, sharded_gram_fn
 
 from test_dynamics import SIMPLE_URDF
-
-
-def test_gram_kernel_interpret():
-    rng = np.random.default_rng(0)
-    Y = jnp.asarray(rng.standard_normal((300, 37)), dtype=jnp.float32)
-    G = gram(Y, row_tile=128, interpret=True)
-    G_ref = gram_xla(Y)
-    # split-precision kernel: bf16x2 accuracy class (~3e-6 of max|G|)
-    np.testing.assert_allclose(np.asarray(G), np.asarray(G_ref), rtol=1e-4, atol=5e-3)
-    assert G.shape == (37, 37)
-
-
-def test_gram_augmented():
-    rng = np.random.default_rng(1)
-    Y = jnp.asarray(rng.standard_normal((200, 20)), dtype=jnp.float32)
-    tau = jnp.asarray(rng.standard_normal(200), dtype=jnp.float32)
-    G, g, tt = gram_augmented(Y, tau, use_pallas=False)
-    np.testing.assert_allclose(np.asarray(g), np.asarray(Y.T @ tau), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(float(tt), float(tau @ tau), rtol=1e-5)
 
 
 def test_sharded_gram_matches_single_device():
@@ -178,7 +158,7 @@ def test_walking_contact_sharded_matches_unsharded():
 @pytest.mark.timeout(120)
 def test_sharded_candidate_batch_matches_unsharded():
     """shardCandidates>1: the global-search candidate batch shards its
-    leading axis over the device mesh (the TPU-native form of the
+    leading axis over the device mesh (the SPMD form of the
     reference's Optuna worker processes, optimizer.py:52-147); values
     must match the unsharded evaluation, including a non-divisible
     batch size (padding sliced off)."""
@@ -218,3 +198,53 @@ def test_sharded_candidate_batch_matches_unsharded():
     np.testing.assert_allclose(f8, f0, rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(g8, g0, rtol=1e-6, atol=1e-8)
     np.testing.assert_array_equal(n8, n0)
+
+
+def test_make_mesh_refuses_more_devices_than_visible():
+    n = len(jax.devices())
+    assert make_mesh(n).size == n
+    with pytest.raises(ValueError, match=f"only {n} are visible"):
+        make_mesh(n + 8)
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("option", ["shardSamples", "shardCandidates"])
+def test_shard_option_beyond_device_count_raises(option):
+    """A sharding option larger than the visible device count is an
+    error, never a silent unsharded run."""
+    import os
+
+    from test_identification import base_opt, synth_samples
+    from flobaroid_tpu.excitation.objective import TrajectoryObjective
+    from flobaroid_tpu.excitation.optimizer import build_bounds
+    from flobaroid_tpu.excitation.trajectory import FourierSpec
+    from flobaroid_tpu.identification.identifier import Identification
+
+    REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    urdf = os.path.join(REPO, "examples", "models", "sevenlink_arm.urdf")
+    too_many = len(jax.devices()) + 8
+    if option == "shardSamples":
+        samples, _ = synth_samples(urdf, n=400, noise=0.05, seed=3)
+        idf = Identification(base_opt(
+            floatingBase=0, materializeRegressor=0, gramChunk=128,
+            randomSamples=500, shardSamples=too_many), urdf)
+        idf.data.init_from_data(dict(samples))
+        with pytest.raises(ValueError, match="shardSamples"):
+            idf.estimateParameters()
+    else:
+        opt = base_opt(floatingBase=0, randomSamples=500,
+                       trajectoryDuration=2.0, checkCollisions=0)
+        from flobaroid_tpu.model import Model
+
+        m = Model(dict(opt), urdf)
+        lims = m.limits
+        spec = FourierSpec(nf=tuple(2 for _ in m.jointNames), limits=tuple(
+            (float(lims[j]["lower"]), float(lims[j]["upper"]))
+            for j in m.jointNames))
+        obj = TrajectoryObjective(m, dict(opt), spec)
+        lo, hi = build_bounds(spec, opt)
+        X = lo + (hi - lo) * np.random.default_rng(2).random((4, len(lo)))
+        obj.calibrate_scale(X[0])
+        obj.config["shardCandidates"] = too_many
+        with pytest.raises(ValueError, match="shardCandidates"):
+            obj.evaluate_batch(X)

@@ -416,3 +416,50 @@ def test_posture_optimizer_parity_objective(tmp_path):
     model_full = Model(opt_full, ARM_URDF)
     with pytest.raises(ValueError, match="identifyGravityParamsOnly"):
         optimize_postures(model_full, opt_full, x_std_real=x_real)
+
+
+def _arm_objective_and_batch(arm_model, n=5):
+    model, opt, _ = arm_model
+    lims = model.limits
+    spec = FourierSpec(
+        nf=tuple([2] * model.num_dofs),
+        limits=tuple((lims[j]["lower"], lims[j]["upper"]) for j in model.jointNames),
+    )
+    obj = TrajectoryObjective(model, dict(opt), spec)
+    from flobaroid_tpu.excitation.optimizer import build_bounds
+
+    lo, hi = build_bounds(spec, opt)
+    X = lo + (hi - lo) * np.random.default_rng(4).random((n, len(lo)))
+    obj.calibrate_scale(X[0])
+    return obj, X, lo, hi
+
+
+@pytest.mark.timeout(120)
+def test_evaluate_batch_full_width_matches_loop(arm_model):
+    """The whole population runs as one full-width vmap on every
+    platform; each candidate's value, constraints and observable count
+    must match its own single evaluation."""
+    obj, X, _, _ = _arm_objective_and_batch(arm_model)
+    f, g, n_obs = obj.evaluate_batch(X)
+    assert f.shape == (len(X),) and g.shape[0] == len(X)
+    for i, x in enumerate(X):
+        fi, gi, ni = obj.evaluate(x)
+        np.testing.assert_allclose(f[i], fi, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(g[i], gi, rtol=1e-5, atol=1e-6)
+        assert n_obs[i] == ni
+
+
+@pytest.mark.timeout(120)
+def test_al_refine_batch_matches_loop(arm_model):
+    """K augmented-Lagrangian restarts in one vmapped dispatch equal K
+    separate single-start stages (per-candidate multipliers and
+    penalties)."""
+    obj, X, lo, hi = _arm_objective_and_batch(arm_model, n=3)
+    _, g0, _ = obj.evaluate(X[0])
+    LAM = np.abs(np.random.default_rng(5).standard_normal((len(X), g0.size)))
+    RHO = np.array([1.0, 2.0, 4.0])
+    Xb = obj.al_refine_batch(X, lo, hi, LAM, RHO, lr=0.01, n_steps=3)
+    assert Xb.shape == X.shape
+    for i in range(len(X)):
+        xi, _ = obj.al_refine(X[i], lo, hi, LAM[i], RHO[i], lr=0.01, n_steps=3)
+        np.testing.assert_allclose(Xb[i], xi, rtol=1e-4, atol=1e-5)
